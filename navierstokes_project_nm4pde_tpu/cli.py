@@ -34,9 +34,9 @@ def _build_config(args, defaults):
     )
 
     if getattr(args, "fast", False):
-        # The benchmarked projection stack (bench.py defaults; measured
-        # 2-2.5x over the conservative library defaults at every scale).
-        # Overrides the individual solver flags it touches.
+        # The benchmarked projection stack (bench.py defaults, but for
+        # bench.py's s_recycle=1 and maxiter 60).  Overrides the individual
+        # solver flags it touches.
         return RunConfig(
             time=TimeConfig(
                 dt=args.dt, t_end=args.t_end,
@@ -57,7 +57,6 @@ def _build_config(args, defaults):
                 steps_per_chunk=args.steps_per_chunk,
                 reduce_plan="columns", proj_schur="frozen",
                 coarse_solve="chol", schur_spmv="auto",
-                ensemble_onehot=getattr(args, "onehot", False),
             ),
             test_case=args.test_case if hasattr(args, "test_case") else 2,
             output_dir=args.output_dir,
@@ -83,7 +82,6 @@ def _build_config(args, defaults):
             dtype=args.dtype,
             precise_dots=not args.no_precise_dots,
             steps_per_chunk=args.steps_per_chunk,
-            ensemble_onehot=getattr(args, "onehot", False),
         ),
         test_case=args.test_case if hasattr(args, "test_case") else 2,
         output_dir=args.output_dir,
@@ -215,13 +213,13 @@ def _run_cylinder(args, dim: int):
 
     # True mean inlet velocity U(t) in pure numpy: the telemetry callback
     # runs per chunk, and evaluating the (jnp) problem.mean_velocity per
-    # step would cost one ~0.4 ms eager device op each -- 20k extra
-    # round-trips on the 3D default run.  (The reference's gmres.csv Re
+    # step would cost one eager device op each -- 20k extra round-trips on
+    # the 3D default run.  (The reference's gmres.csv Re
     # column hardcodes 0.1*1.5*sin(t pi/8)/1e-3 regardless of case and
     # viscosity, src/NavierStokes2D.cpp:622; this generalises it to the
     # run's actual inlet profile and nu.)
     # `is not None` (a truthiness test would treat an explicit --u-m 0 as
-    # unset; advisor finding, round 2)
+    # unset)
     u_m_def = 1.5 if dim == 2 else 9.0
     u_m2 = args.u_m if getattr(args, "u_m", None) is not None else u_m_def
     # 2D mean = 2 u_m / 3; 3D mean = 4 u_m / 9 (cylinder3d.py)
@@ -247,13 +245,16 @@ def _run_cylinder(args, dim: int):
     # and 0 after (this engine builds its Schur/coarse structures once at
     # setup instead of re-initialising every step).
     now0 = time.perf_counter()
-    clock = {"last": now0, "setup": now0 - t_total._t0}
+    setup_s = now0 - t_total._t0
+    clock = {"last": now0, "setup": setup_s}
+    chunk_s = []  # host wall seconds per chunk (the first includes compile)
 
     def callback(solver, state, diags):
         nonlocal cd_max, cl_min
         now = time.perf_counter()
         chunk_wall, clock["last"] = now - clock["last"], now
         k = len(diags.iters)
+        chunk_s.append(chunk_wall)
         steps = np.arange(done["n"] + 1, done["n"] + k + 1)
         times = steps * cfg.time.dt
         done["n"] += k
@@ -323,6 +324,10 @@ def _run_cylinder(args, dim: int):
     )
     print(f"Strouhal number (from c_l) = {st:.4f}")
     print(f"Total wall time: {t_total.stop():.2f} s")
+    return {
+        "solver": solver, "state": state, "diags": diags,
+        "setup_s": setup_s, "chunk_s": chunk_s,
+    }
 
 
 def _run_convergence(args):
@@ -370,8 +375,7 @@ def _run_convergence(args):
     log.log_convergence(hs, l2s, h1s)
     print(table.format())
     print(f"Time taken to solve ENTIRE Navier Stokes problem: {timer.stop():.2f} s")
-    rates = table.rates()
-    return rates
+    return table
 
 
 def _run_ensemble(args):
@@ -445,17 +449,20 @@ def _run_ensemble(args):
         "ensemble.csv", "Re,nu,cd_max,cl_min,delta_p_final", rows
     )
     print(f"Wrote {out_dir}/ensemble.csv; wall time {timer.stop():.1f}s")
+    return {"solver": solver, "state": bstate, "diags": bdiags, "nus": nus}
 
 
 def main(argv=None):
-    from navierstokes_project_nm4pde_tpu.utils.platform import (
-        honor_platform_env,
+    """Parse `argv` and run one subcommand; returns its result (a summary
+    dict for cylinder2d/cylinder3d/ensemble, the ConvergenceTable for
+    convergence) so the same entry point can be driven in-process."""
+    from navierstokes_project_nm4pde_tpu.utils.compile_cache import (
+        enable_compile_cache,
     )
 
-    honor_platform_env()
     parser = argparse.ArgumentParser(
         prog="navierstokes-tpu",
-        description="TPU-native incompressible Navier-Stokes benchmarks",
+        description="Incompressible Navier-Stokes FEM benchmarks (JAX)",
     )
     sub = parser.add_subparsers(dest="cmd", required=True)
 
@@ -495,9 +502,6 @@ def main(argv=None):
     pe.add_argument("--re-max", type=float, default=300.0)
     pe.add_argument("--shard-batch", action="store_true",
                     help="shard the ensemble axis over available devices")
-    pe.add_argument("--onehot", action="store_true",
-                    help="RCM ordering + Pallas one-hot MXU reductions for "
-                         "the vmapped batch (ops/onehot.py)")
 
     pc = sub.add_parser("convergence", help="Ethier-Steinman convergence study")
     _common_flags(pc, dt=4e-4, t_end=4e-4, precond="asimple")
@@ -506,18 +510,18 @@ def main(argv=None):
     pc.set_defaults(test_case=2, dtype="float32")
 
     args = parser.parse_args(argv)
+    enable_compile_cache()
     if getattr(args, "dtype", "float32") == "float64":
         import jax
 
         jax.config.update("jax_enable_x64", True)
     if args.cmd == "cylinder2d":
-        _run_cylinder(args, dim=2)
-    elif args.cmd == "cylinder3d":
-        _run_cylinder(args, dim=3)
-    elif args.cmd == "convergence":
-        _run_convergence(args)
-    elif args.cmd == "ensemble":
-        _run_ensemble(args)
+        return _run_cylinder(args, dim=2)
+    if args.cmd == "cylinder3d":
+        return _run_cylinder(args, dim=3)
+    if args.cmd == "convergence":
+        return _run_convergence(args)
+    return _run_ensemble(args)
 
 
 if __name__ == "__main__":

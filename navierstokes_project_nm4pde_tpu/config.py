@@ -9,8 +9,19 @@ and ensembles can vmap over them.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional
+
+
+def matmul_precision_scope(precision: str | None):
+    """Context manager applying `NumericsConfig.matmul_precision` to the
+    traces opened inside it (a no-op for None: the ambient setting)."""
+    if precision is None:
+        return contextlib.nullcontext()
+    import jax
+
+    return jax.default_matmul_precision(precision)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,8 +71,9 @@ class PrecondConfig:
     include/Preconditioners.hpp:7-534.  The reference's inner solves are
     ILU-preconditioned Krylov to rel. tol 1e-2
     (ref: include/Preconditioners.hpp:260-261); ILU's sequential triangular
-    solves are hostile to TPUs, so inner solves here are Jacobi-preconditioned
-    fixed-iteration Krylov / Chebyshev with the same loose-tolerance role.
+    solves serialise on wide accelerators, so inner solves here are
+    Jacobi-preconditioned fixed-iteration Krylov / Chebyshev with the same
+    loose-tolerance role.
     """
 
     kind: str = "asimple"
@@ -70,7 +82,7 @@ class PrecondConfig:
     f_iters: int = 8
     # "gmres" (robust), "richardson" (dot-free damped Jacobi), or
     # "chebyshev" (dot-free; F is near-SPD at practical dt) -- fewer device
-    # ops matter because each op has a fixed on-device cost.
+    # ops per iteration.
     f_solver: str = "gmres"
     # Yosida's velocity-correction solve iterations (0 = same as f_iters).
     f_corr_iters: int = 0
@@ -80,30 +92,31 @@ class PrecondConfig:
     s_iters: int = 25
     s_solver: str = "cg"
     # Apply the preconditioner's velocity-block operators in bfloat16
-    # (halves the gather traffic that dominates on TPU; the outer flexible
-    # GMRES sees the preconditioner as a black box so accuracy is unaffected).
+    # (halves the gather traffic; the outer flexible GMRES sees the
+    # preconditioner as a black box so accuracy is unaffected).
     low_precision: bool = False
     # mg2 two-level form for the projection pressure Poisson: "v11"
     # (symmetric multiplicative V(1,1); 2 extra S SpMVs per application)
     # or "additive" (omega D^-1 r + coarse(r); zero S SpMVs, weaker but
-    # each Schur CG iteration drops from 3 to 1 row-rate-bound ELL
-    # gathers).  Both are SPD (CG-safe).
+    # each Schur CG iteration drops from 3 SpMVs to 1).  Both are SPD
+    # (CG-safe).
     mg2_form: str = "v11"
     # Projection stepper only: keep the Jacobi diagonal of F at its
     # convection-free value diag(M/dt + nu A) instead of re-tabulating
     # diag(C(w)) every step.  The skew-symmetrised convection + Temam form
     # has near-zero diagonal, but computing it costs an element pass plus a
-    # full row-rate-bound scalar reduction per step.  Only valid with the
+    # full scalar reduction per step.  Only valid with the
     # plain-Jacobi velocity preconditioner (f_iters=0, f_solver="gmres"):
     # the damped smoothers need diag(C) for their spectral-bound bump.
     freeze_conv_diag: bool = False
     # Projection stepper only: pool size k for the recycled-block GCR
-    # velocity solve (0 = plain FGMRES).  The matrix-free F apply is
-    # row-rate bound (a [n, K*dim] payload costs about the same as
-    # [n, dim]), so one WIDE apply over [Jacobi(r0), pool of k directions
-    # recycled from the previous time step] replaces most of the
-    # sequential FGMRES iterations; narrow GCR rounds finish to tolerance
-    # against the exact residual (solvers/krylov.py gcr_recycled).
+    # velocity solve (0 = plain FGMRES).  One WIDE apply over
+    # [Jacobi(r0), pool of k directions recycled from the previous time
+    # step] replaces most of the sequential FGMRES iterations -- a gain
+    # only while a [n, K*dim] payload costs about what [n, dim] does (true
+    # of the row-rate-bound gathers before the H100 port; not yet measured
+    # on the H100).  Narrow GCR rounds finish to tolerance against the
+    # exact residual (solvers/krylov.py gcr_recycled).
     # Requires the plain-Jacobi velocity preconditioner (f_iters == 0).
     f_recycle: int = 0
     # Projection stepper with the FROZEN Schur only: pool size k for the
@@ -116,8 +129,8 @@ class PrecondConfig:
     # Projection stepper with the macro rhs pass only: pool size k for
     # the ZERO-extra-apply least-squares warm start of the velocity
     # FGMRES.  The last k steps' solve increments ride extra channels
-    # through the dual-channel macro rhs pass (row-rate-bound gather +
-    # reduce: ~free), yielding EXACT images F D under this step's
+    # through the dual-channel macro rhs pass, yielding EXACT images F D
+    # under this step's
     # operator; the warm-start residual is LS-projected onto them
     # (solvers/krylov.py ls_warmstart) before iterating.  No stale-image
     # error -- the projected residual is exactly r0 - F(D c) -- and a
@@ -149,51 +162,47 @@ class PrecondConfig:
 
 @dataclasses.dataclass(frozen=True)
 class NumericsConfig:
-    """Floating-point and scheduling knobs."""
+    """Floating-point and scheduling knobs.
+
+    Where a default below says "chosen before the H100 port", it was picked
+    by measurements on the engine's first target and has not yet been
+    measured on the H100 (ROADMAP S3)."""
 
     dtype: str = "float32"  # array dtype on device
     precise_dots: bool = True  # accumulate Krylov dot products in float64
     steps_per_chunk: int = 10  # time steps fused into one jitted scan
     spatial_reorder: bool = True  # spatial cell + first-touch node renumbering
-    # Ensemble fast path: reorder with RCM (bounded windows) and reduce
-    # vmapped assembly contributions with the Pallas one-hot MXU kernel
-    # (ops/onehot.py).  Only affects vmapped runs; single-run semantics and
-    # performance are unchanged (XLA gather-sum plans).
-    ensemble_onehot: bool = False
     # Fold the per-element F matrices once per step (F_e = detJ/dt M^ +
     # nu GKd:A^ + C_e(w), ~400 B/cell) so every F-apply is one batched
-    # matmul instead of the 5-einsum chain -- measured 15% per apply at
-    # 609k DoF.  Disable for very large vmapped ensembles if the B x E x
-    # nloc^2 buffer pressures HBM.
+    # matmul instead of the 5-einsum chain.  Disable for very large
+    # vmapped ensembles if the B x E x nloc^2 buffer pressures device
+    # memory.
     fold_elem: bool = True
     # Velocity-reduce plan: "table" (2-bucket padded [rows, K] gather
-    # tables), "exact" (valence-exact buckets, zero padded rows -- measured
-    # 1.39x the table reduce at 609k DoF), "columns" (exact buckets applied
-    # as K unrolled 1-D row gathers + adds, 1.13x over "exact" standalone),
-    # "halving" (one flat 1-D gather + contiguous pairwise halving sums,
-    # ops/scatter.py HalvingPlan), or "windowed" (scan over RCM-contiguous
-    # destination blocks, each gathering window-locally from a dynamic-
-    # sliced source window -- the gather rate is SOURCE-working-set bound,
-    # scripts/prof_gather_rate.py).  Same roundoff class; pick by
-    # measurement on the target backend.
+    # tables), "exact" (valence-exact buckets, zero padded rows),
+    # "columns" (exact buckets applied as K unrolled 1-D row gathers +
+    # adds), "halving" (one flat 1-D gather + contiguous pairwise halving
+    # sums, ops/scatter.py HalvingPlan), or "windowed" (scan over
+    # RCM-contiguous destination blocks, each gathering window-locally
+    # from a dynamic-sliced source window).  Same roundoff class; pick by
+    # measurement on the target backend (all chosen before the H100 port,
+    # where scatter was serialised -- ROADMAP D4).
     reduce_plan: str = "table"
     # Destination rows per windowed-reduce block (reduce_plan="windowed"):
-    # smaller blocks = smaller (faster) source windows but more scan steps.
+    # smaller blocks = smaller source windows but more scan steps.
     windowed_rows: int = 2048
     # Per-element contraction lowering (ops/operators.py): "vpu" evaluates
     # the tiny [E, i, j] x [E, j, c] matvecs as broadcast multiply + sum --
-    # pure f32 VPU arithmetic, EXACT (strictly more accurate than the MXU's
-    # bf16-pass "highest" emulation) and measured faster at bench scale.
-    # "einsum" keeps the MXU lowering (the safe choice for wide vmapped
+    # elementwise f32 arithmetic, EXACT whatever the matmul precision.
+    # "einsum" keeps the matmul lowering (the safe choice for wide vmapped
     # ensembles, where the broadcast relies on XLA fusing the [B, E, i, j,
     # c] product; run_ensemble forces it).
     element_contraction: str = "vpu"
     # Schur SpMV form in frozen-projection mode: "auto" uses the block-
-    # banded dense form (ops/banded.py -- static 128-lane tile gather +
-    # batched MXU matvec, ~10x cheaper than the row-rate-bound ELL gather)
-    # whenever the RCM band fits the dense-value budget, falling back to
-    # "ell" otherwise; "banded" requires it; "ell" keeps the bucketed ELL
-    # gather SpMV everywhere.
+    # banded dense form (ops/banded.py -- static 128-wide tile gather +
+    # batched dense matvec) whenever the RCM band fits the dense-value
+    # budget, falling back to "ell" otherwise; "banded" requires it; "ell"
+    # keeps the bucketed ELL gather SpMV everywhere.
     schur_spmv: str = "auto"
     # Aggregate size of the two-level Schur coarse space (ops/coarse.py):
     # n_p/agg coarse rows, dense-Cholesky-factorised per step.  Smaller
@@ -207,23 +216,21 @@ class NumericsConfig:
     # setup and solves the rescaled system S1 phi = rhs/dt_eff each step
     # (identical solution; saves the per-step ELL assembly + coarse
     # factorisation and allows arbitrarily expensive one-time setup).
-    # "step" rebuilds per step (the round-2 behavior; kept for A/B).
+    # "step" rebuilds per step (kept for A/B).
     proj_schur: str = "frozen"
     # How the two-level coarse system is solved per CG iteration:
     # "chol" back-substitutes the (per-step or frozen) dense Cholesky
     # factor; "inv" precomputes the explicit dense inverse ONCE so each
-    # application is a single [nc, nc] matmul -- MXU-friendly and
-    # independent of nc, which makes much smaller aggregates (stronger
-    # coarse spaces) affordable.  "inv" requires proj_schur="frozen".
+    # application is a single [nc, nc] matmul, independent of nc, which
+    # makes much smaller aggregates (stronger coarse spaces) affordable.
+    # "inv" requires proj_schur="frozen".
     coarse_solve: str = "chol"
     # Forward element-DoF gather plan: "plain" (u[cells]), "windowed"
     # (per-cell-block dynamic-sliced vertex/edge windows, gathered
     # window-locally -- ops/scatter.py WindowedGather), or "auto" (windowed
-    # iff the [n_unodes, dim] node array outgrows the fast source working
-    # set, ~2-3 MB on v5e: plain measured 11.8 ms vs windowed 7.2 per
-    # apply-gather at 965k DoF, but plain wins 3.4 vs 4.3 at 609k).
-    # Windowed requires RCM ordering and is skipped for sharded operators
-    # and vmapped ensembles.
+    # iff the [n_unodes, dim] node array is at least 768k entries, i.e.
+    # from ~1M DoF; chosen before the H100 port).  Windowed requires RCM
+    # ordering and is skipped for sharded operators and vmapped ensembles.
     gather_plan: str = "auto"
     # Cells per windowed-gather block (gather_plan="windowed"/"auto").
     gather_cpb: int = 4096
@@ -232,28 +239,27 @@ class NumericsConfig:
     # the tens-of-MB element array); "ell" as an assembled valence-bucketed
     # ELL SpMV gathering nnz(D) rows from the KB-scale pressure vector
     # (ops/operators.py build_gradient_plan); "bsr" as a supernode
-    # block-sparse apply (ops/bsr.py: [bs, C]-panel gathers at the 43 GB/s
-    # wide-row rate + one streamed dense value array -- the gather rate is
-    # ROW-rate bound, so wide rows beat both forms above).
-    # "auto" = "bsr" for the single-device projection stepper (where the
-    # update gradient is on the hot path), "element" otherwise (sharded
-    # operators and vmapped ensembles keep the element pass).
+    # block-sparse apply (ops/bsr.py: [bs, C]-panel gathers + one streamed
+    # dense value array -- wide rows instead of many narrow ones; chosen
+    # before the H100 port).  "auto" = "bsr" for the single-device
+    # projection stepper (where the update gradient is on the hot path),
+    # "element" otherwise (sharded operators and vmapped ensembles keep the
+    # element pass).
     grad_apply: str = "auto"
     # Divergence application: "element" (gather + contraction + pressure-
     # space reduce), "bsr" (assembled supernode block-sparse, see
     # grad_apply), or "auto" ("bsr" for the single-device projection
     # stepper, whose pressure-Poisson rhs is on the hot path).  With the
     # BSR divergence the projection stepper also drops the aux-gather
-    # FGMRES machinery (reusing Krylov gathers for the divergence rhs no
-    # longer pays when D itself is ~1-2 ms).
+    # FGMRES machinery (reusing Krylov gathers for the divergence rhs).
     div_apply: str = "auto"
     # Supernode (block) size of the BSR operators.  Any multiple of 8
     # tiles exactly (the value arrays fold the whole contraction axis
-    # into the lane dim; ops/bsr.py).  Larger blocks cut gathered ROWS
+    # into the minor dim; ops/bsr.py).  Larger blocks cut gathered ROWS
     # but lose block fill (dense-slot waste grows with bs on the
-    # rectangular D/G); measured sweet spots at 965k DoF: D/K 32, G 16
-    # (scripts/prof_bsr.py).  The per-operator overrides default to
-    # `bsr_block` when None.
+    # rectangular D/G); D/K 32 and G 16 were chosen at 965k DoF before the
+    # H100 port (scripts/prof_bsr.py).  The per-operator overrides default
+    # to `bsr_block` when None.
     bsr_block: int = 32
     bsr_block_div: Optional[int] = None
     bsr_block_grad: Optional[int] = 16
@@ -261,32 +267,31 @@ class NumericsConfig:
     # Velocity-block application when the non-convective part is CONSTANT
     # (projection stepper with convection "explicit" or "imex", scheme
     # bdf1): "bsr" assembles K = M/dt + nu A once into the supernode BSR
-    # form so every Krylov iteration streams K at wide-row rates instead
-    # of paying the element gather+reduce; "element" keeps the matrix-free
-    # element pass; "auto" picks "bsr" where it applies (single device).
+    # form so every Krylov iteration streams K instead of paying the
+    # element gather+reduce; "element" keeps the matrix-free element pass;
+    # "auto" picks "bsr" where it applies (single device).
     vel_apply: str = "auto"
-    # Velocity-block application when convection is IMPLICIT (the judged
-    # bench): "macro" assembles the per-step folded F_e into macro-element
-    # block-dense [U, U] operators on device (ops/macroblock.py: one-hot
-    # MXU assembly, beta*n-row gathers instead of slot-row gathers) --
-    # measured A/B'd against the "element" fold pass; "auto" picks
-    # "macro" for the single-device projection stepper with fold_elem.
+    # Velocity-block application when convection is IMPLICIT (the
+    # benchmark): "macro" assembles the per-step folded F_e into
+    # macro-element block-dense [U, U] operators on device
+    # (ops/macroblock.py: one-hot assembly, beta*n-row gathers instead of
+    # slot-row gathers); "auto" picks "macro" for the single-device
+    # projection stepper with fold_elem.
     f_apply: str = "auto"
     # Cells per macro block (auto-shrinks until every block's unique
-    # node count fits the U-lane slot table).
+    # node count fits the U-slot table).
     macro_cblk: int = 20
-    # Macro block slot width U (lane multiples of 128).  Wider blocks
-    # cut the block-overlap factor beta = B*U/n and with it the row
-    # count of BOTH row-rate-bound phases of every macro apply (slot
-    # gather + bucketed reduce), at the price of a larger value stream
-    # and build (scripts/prof_macro_u256.py).
+    # Macro block slot width U (multiples of 128).  Wider blocks cut the
+    # block-overlap factor beta = B*U/n and with it the row count of BOTH
+    # gather phases of every macro apply (slot gather + bucketed reduce),
+    # at the price of a larger value stream and build
+    # (scripts/prof_macro_u256.py).
     macro_u: int = 128
-    # Macro value assembly engine.  "highest": f32 operands under the
-    # 6-pass bf16 emulation (the validated round-4 form).  "split3":
-    # F_e split into three exactly-bf16 parts so both one-hot
-    # contractions run native-rate MXU passes -- same values to f32
-    # summation order (equality-tested), ~half the one-hot stream
-    # traffic.  "auto" follows the measured default.
+    # Macro value assembly engine.  "highest": f32 operands at full
+    # matmul precision.  "split3": F_e split into three exactly-bf16
+    # parts so both one-hot contractions run on bf16 operands -- same
+    # values to f32 summation order (equality-tested).  "auto" =
+    # "highest" (chosen before the H100 port).
     macro_build: str = "auto"
     # K/C split of the per-step macro build: the constant K = M/dt + nu A
     # is folded into block-dense macro values ONCE at setup (macro_mass /
@@ -294,21 +299,21 @@ class NumericsConfig:
     # folded (engine per macro_conv_build) and the three value arrays are
     # recombined in one fused elementwise pass.  Requires the macro rhs
     # pass (the element rhs/r0 fallback needs the FULL folded F_e).
-    # "auto" follows the measured default; "on"/"off" force it.
+    # "auto" = "off" (chosen before the H100 port); "on"/"off" force it.
     macro_split: str = "auto"
     # Assembly engine for the convection-only macro values under the
-    # split.  "default" (native-rate bf16 MXU, 13.4 vs 21.4 ms at 965k)
-    # puts the bf16-class value error on C's ~1/30 share of F only --
-    # the constant blocks stay exact; "highest" keeps the full-fidelity
-    # build.  "auto" follows the measured default.
+    # split.  "default" (backend-default matmul precision) puts its
+    # value error on C's ~1/30 share of F only -- the constant blocks
+    # stay exact; "highest" keeps the full-fidelity build.  "auto" =
+    # "default".
     macro_conv_build: str = "auto"
     # Macro matvec engine for the Krylov F apply: "highest" streams the
-    # f32 value array through the 6-pass bf16 emulation every apply;
-    # "split3" pre-splits the values into exact bf16 (hi, mid, lo) parts
-    # once per step and pays ONE stream of each half-size part per apply
-    # (six significance products, ~1e-8 rel error class -- the split3
-    # build's class; equality-tested).  "auto" resolves per the
-    # PERFORMANCE.md round-5 A/B.
+    # f32 value array at full matmul precision every apply; "split3"
+    # pre-splits the values into exact bf16 (hi, mid, lo) parts once per
+    # step and pays ONE stream of each half-size part per apply (six
+    # significance products, ~1e-8 rel error class -- the split3 build's
+    # class; equality-tested).  "auto" = "highest" (chosen before the H100
+    # port).
     macro_apply: str = "auto"
     # Momentum rhs + warm-start residual through the macro values
     # (b = M hist - G p and r0 = b - F u0 from one slot gather, a
@@ -319,19 +324,20 @@ class NumericsConfig:
     macro_rhs: str = "auto"
     # Fused step gather: with the macro rhs pass active, ONE up-front
     # slot gather carries hist/u0/warm-start-pool/w and the convection
-    # velocity's element view comes from a one-hot MXU expansion of its
+    # velocity's element view comes from a one-hot expansion of its
     # slot panels (ops/macroblock.py slot_expand_elem) -- retiring the
     # standalone 2.2M-row forward gather AND the rhs pass's own slot
     # gather.  Exact (bit-level) vs the gathered form.  "off" keeps the
     # separate gathers (A/B hook).
     macro_wfuse: str = "auto"
-    # Matmul precision scoped around every step trace (models/base.py
-    # NavierStokesSolver.step -- NOT a process-global setting).  On TPU
-    # the default truncates f32 einsum operands to bfloat16; measured to
-    # destabilise the projection stepper on fine meshes (a marginal mode
-    # amplified ~2.5x/step at 53k DoF 2D, lc=0.015, dt=1e-3) and to
-    # inflate Krylov iteration counts near tight tolerances.  "highest"
-    # uses full f32 (6-pass) products; None leaves the ambient setting.
+    # Matmul precision scoped around every program the solver jits
+    # (NavierStokesSolver.step, its setup-time builds, HaloProjectionStep
+    # -- NOT a process-global setting).  The backend default may run f32
+    # matmuls on reduced-precision operands (TF32 on the GPU); that class
+    # of operand error destabilised the projection stepper on fine meshes
+    # when it was last tested (before the H100 port; not yet measured on
+    # the H100 -- ROADMAP S3e).  "highest" keeps full f32 products; None
+    # leaves the ambient setting.
     matmul_precision: str | None = "highest"
 
 

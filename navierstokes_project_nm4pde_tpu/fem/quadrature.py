@@ -4,7 +4,7 @@ The reference uses deal.II `QGaussSimplex(degree+1)` conical-product rules
 (ref: src/NavierStokes2D.cpp:45-53) -- 9 points on triangles / 27 on tets for
 P2.  We instead tabulate compact symmetric rules with the same polynomial
 exactness (degree 5): Dunavant's 7-point triangle rule and Keast's 15-point
-tetrahedron rule -- fewer quadrature points means proportionally fewer MXU
+tetrahedron rule -- fewer quadrature points means proportionally fewer
 FLOPs per operator application with identical integration accuracy for the
 affine Taylor-Hood forms.
 

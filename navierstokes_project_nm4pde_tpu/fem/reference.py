@@ -3,8 +3,8 @@
 The reference imports these from deal.II (`FE_SimplexP(1)`, `FE_SimplexP(2)`;
 ref: src/NavierStokes2D.cpp:31-36).  Here they are closed-form numpy tables:
 everything downstream consumes shape values / gradients tabulated at
-quadrature points, so the basis only ever exists as small constant ndarrays
-that live in VMEM during kernels.
+quadrature points, so the basis only ever exists as small constant
+ndarrays.
 
 Conventions
 -----------

@@ -3,7 +3,7 @@
 Replaces deal.II's `FESystem(FE_SimplexP(2)^dim, FE_SimplexP(1))` +
 `DoFHandler` + block renumbering (ref: src/NavierStokes2D.cpp:31-93).
 
-TPU-native DoF model: there is no distributed index set -- DoFs are plain
+DoF model: there is no distributed index set -- DoFs are plain
 array axes.  Velocity DoFs live as `[n_unodes, dim]` arrays (one scalar P2
 node set shared by all velocity components -- the reference's block
 renumbering collapses to array shape), pressure DoFs as `[n_pnodes]` with

@@ -76,9 +76,10 @@ class Mesh:
         """Renumber cells spatially and vertices (first-touch by the
         sorted cells).
 
-        Gathers dominate TPU operator application; spatial ordering gives
-        DoF gathers/reductions cache- and DMA-friendly locality, and it is
-        the prerequisite for windowed (VMEM-resident) assembly kernels.
+        Gathers dominate matrix-free operator application; spatial
+        ordering gives DoF gathers/reductions cache-friendly locality, and
+        it is the prerequisite for the windowed gathers and the banded
+        Schur form (RCM).
         Plays the role of the reference's mesh partitioning/renumbering
         (ref: src/NavierStokes2D.cpp:16-19, :62-69) for a single device.
 
@@ -88,8 +89,8 @@ class Mesh:
         ~24 cells spread across a large index range.
         method="rcm": reverse Cuthill-McKee on the vertex-shared cell
         adjacency graph.  Minimises exactly the span/bandwidth quantity,
-        giving tail-free windows -- the prerequisite for the windowed
-        one-hot Pallas kernels (ops/onehot.py).
+        giving tail-free windows -- the prerequisite for the banded
+        frozen-Schur SpMV (ops/banded.py) and the windowed gathers.
         """
         if method == "rcm":
             cell_order = self._cell_order_rcm()

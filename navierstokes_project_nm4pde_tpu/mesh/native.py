@@ -1,7 +1,7 @@
 """ctypes bindings for the native meshkit library (with numpy fallback).
 
-The reference's mesh runtime is C++ (deal.II); here the TPU compute path is
-XLA, but the combinatorial setup (edge extraction, facet matching, index-map
+The reference's mesh runtime is C++ (deal.II); here the device compute path
+is XLA, but the combinatorial setup (edge extraction, facet matching, index-map
 inversion) runs on the host and the native kernels in `native/meshkit.cpp`
 replace numpy's sort/unique pipeline with O(N) hash/counting passes.
 The library is built lazily (`make -C native`); every entry point has a pure

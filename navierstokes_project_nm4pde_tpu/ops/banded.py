@@ -1,25 +1,24 @@
 """Block-banded dense form of the frozen projection Schur operator.
 
 The ELL SpMV on the pressure Schur S1 = D diag(M)^-1 D^T gathers ~n_p * W
-SCALAR elements of p (4-byte rows) and the measured TPU gather is row-rate
-bound at ~10 ns/row -- at 609k DoF that single gather is ~14 ms and the
-Schur CG pays it every iteration (PERFORMANCE.md).  But the frozen S1 never
-changes, and after the mesh's RCM spatial reordering its pattern is BANDED:
+SCALAR elements of p (4-byte rows), and the Schur CG pays that gather every
+iteration (a row-rate-bound cost before the H100 port; not yet measured on
+the H100 -- ROADMAP S3).  But the frozen S1 never changes, and after the mesh's RCM spatial reordering its pattern is BANDED:
 every row's columns lie inside a contiguous window of width ~2x the vertex
 RCM bandwidth.  This module restructures S1 once at setup into
 
     vals  [n_blk, R, W]   dense banded values (R consecutive rows per block
                           share one column window; zero where no entry)
-    tiles [n_blk, T]      static 128-lane tile ids of each block's window
+    tiles [n_blk, T]      static 128-wide tile ids of each block's window
 
 so the SpMV becomes
 
     win = p2d[tiles]             # [n_blk, T, 128]: a few THOUSAND 512-byte
-                                 # row gathers (~35 us, not 14 ms)
-    y   = einsum('brw,bw->br', vals, win.reshape(n_blk, W))   # MXU batched
+                                 # row gathers instead of ~n_p * W scalars
+    y   = einsum('brw,bw->br', vals, win.reshape(n_blk, W))   # batched
 
-The matmul is HBM-bound on reading `vals` (~100-500 MB at bench sizes,
-~0.2-0.6 ms at HBM rate) -- a ~10-20x cheaper exact SpMV.  Only worthwhile
+The matmul is bound by reading `vals` (~100-500 MB at bench sizes) from
+device memory.  Only worthwhile
 because S1 is FROZEN: the dense banded values would cost a scatter per step
 otherwise.  (Reference analogue: the Trilinos sparse mmult S~ the frozen
 path replaces, ref: include/Preconditioners.hpp:144,248.)
@@ -100,7 +99,7 @@ def build_banded_schur(
 
 
 def banded_matvec(b: BandedSchur, p: jax.Array) -> jax.Array:
-    """Exact S1 @ p via window row-gather + batched MXU matvec."""
+    """Exact S1 @ p via window row-gather + batched dense matvec."""
     pad = b.n_tiles_pad * TILE - p.shape[0]
     p2d = jnp.concatenate([p, jnp.zeros((pad,), p.dtype)]).reshape(-1, TILE)
     n_blk, T = b.tiles.shape

@@ -1,9 +1,9 @@
 """Two-level (coarse-grid corrected) preconditioner for the Schur block.
 
 The pressure Schur complement is Laplacian-like: one-level smoothers
-(Jacobi, SPAI) lose effectiveness as the mesh refines, and on this TPU
-stack every CG iteration costs ~15 fixed-cost device ops.  A classic
-two-level method fixes both:
+(Jacobi, SPAI) lose effectiveness as the mesh refines, and every CG
+iteration costs ~15 device ops.  A classic two-level method cuts the
+iteration count:
 
     z = omega D^-1 r                              (fine smoothing)
     z += R^T Sc^-1 R (r - S z)                    (coarse correction)
@@ -100,7 +100,7 @@ def coarse_factor(cs: CoarseSchur, vals_flat: jax.Array):
 def coarse_inverse(cs: CoarseSchur, vals_flat: jax.Array) -> jax.Array:
     """Explicit dense inverse of the coarse matrix (one-time setup for the
     frozen projection Schur operator): each application becomes a single
-    [nc, nc] matmul on the MXU instead of two sequential triangular solves,
+    [nc, nc] matmul instead of two sequential triangular solves,
     so large coarse spaces (small aggregates) stay cheap per iteration."""
     cho = jax.scipy.linalg.cho_factor(coarse_dense(cs, vals_flat), lower=True)
     eye = jnp.eye(cs.nc, dtype=vals_flat.dtype)
@@ -139,9 +139,8 @@ def twolevel_apply_additive_g(cs: CoarseSchur, solve_c, inv_diag, r,
     """ADDITIVE two-level application z = omega D^-1 r + R^T Sc^-1 R r.
 
     Symmetric (CG-safe) like the V(1,1) form but with ZERO S SpMVs per
-    application -- on this backend every Schur CG iteration otherwise pays
-    three row-rate-bound ELL gathers (the CG matvec + the V-cycle's two
-    residuals), ~43 ms/iteration at 609k DoF (PERFORMANCE.md)."""
+    application -- every Schur CG iteration otherwise pays three SpMVs
+    (the CG matvec + the V-cycle's two residuals)."""
     zc = solve_c(restrict(cs, r))
     return omega * inv_diag * r + prolong(cs, zc, r.shape[0])
 
@@ -153,7 +152,7 @@ def cho_solve_c(cho):
 
 def inv_solve_c(Sc_inv):
     """Coarse solve from a precomputed dense inverse: one [nc, nc] matvec
-    on the MXU -- per-application cost independent of the factor structure,
+    -- per-application cost independent of the factor structure,
     which makes much smaller aggregates (stronger coarse spaces) affordable
     when the operator is frozen (projection mode)."""
     return lambda rc: Sc_inv @ rc

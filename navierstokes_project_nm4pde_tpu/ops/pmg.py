@@ -5,7 +5,7 @@ dt, but as the mesh refines the nu*A part makes plain Jacobi smoothing lose
 its grip on the smooth (low-frequency) modes: the bench's velocity FGMRES
 climbed from ~16 iterations at 609k DoF to ~22+ at 965k.  The classical
 cure the reference applies is ILU (include/Preconditioners.hpp:92-98) --
-serial and TPU-hostile.  Here: a two-level p-coarsening,
+serial triangular solves.  Here: a two-level p-coarsening,
 
     z  = omega D^-1 r                      (fine Jacobi smoothing)
     z += P Fc^-1 P^T (r - F z)             (P1 coarse correction)

@@ -1,16 +1,17 @@
 """Transpose-free assembly: scatter-add recast as gather + sum.
 
 The reference's assembly reduction (`matrix.add` + `compress()`;
-ref: src/NavierStokes2D.cpp:307-320) is a scatter-add.  XLA lowers
-scatter/segment-sum on TPU to a serialised update loop -- measured ~200 ms
-for 2M updates on v5e, which would dominate every operator application.
-Gathers, by contrast, run near HBM bandwidth.
+ref: src/NavierStokes2D.cpp:307-320) is a scatter-add.  On the engine's
+first target XLA serialised scatter/segment-sum, which would have dominated
+every operator application, while gathers ran near memory bandwidth.  The
+GPU has atomic scatter-add; whether these plans still win there is open
+(ROADMAP D4).
 
 So the framework *inverts* the reduction at setup time: for every global DoF
 row we precompute the (static) list of element-local contribution slots, and
 assembly becomes
 
-    out[row] = sum_k flat_contributions[slots[row, k]]     (gather + VPU sum)
+    out[row] = sum_k flat_contributions[slots[row, k]]     (gather + sum)
 
 with slots padded by an index that points at a zero pad row.  Rows are
 bucketed by valence (P2 vertex nodes touch ~24 cells, edge nodes ~6) so the
@@ -39,9 +40,8 @@ class GatherPlan:
     `mode` selects the apply strategy: "table" issues one [rows_b, K_b]
     2-D gather per bucket and row-sums it; "columns" unrolls each bucket
     into K_b 1-D row gathers with explicit adds between them -- each gather
-    is then a pure row copy (the forward gather's access pattern), measured
-    7.91 vs 8.93 ms on the 1.36M-slot velocity reduce at 609k DoF
-    (scripts/prof_reduce2.py)."""
+    is then a pure row copy (the forward gather's access pattern;
+    scripts/prof_reduce2.py)."""
 
     slots: tuple  # tuple of [rows_b, K_b] int32 arrays (padded with n_slots)
     n_slots: int = dataclasses.field(metadata=dict(static=True))  # pad index
@@ -284,13 +284,11 @@ class WindowedGather:
     windows: u[cells] evaluated as scan(blocks): slice a vertex window and
     an edge window out of the node array, gather window-locally.
 
-    Motivation (scripts/prof_apply_split.py, 965k bench mesh): the XLA row
-    gather is SOURCE-working-set bound; once the [n_unodes, c] node array
-    outgrows the fast set (~2-3 MB on v5e) the fused forward gather pays
-    11.8 ms/apply while the windowed form holds 7.2 ms (and the element
-    contraction fuses into the scan nearly for free: 7.6 vs 15.2 ms with
-    _emv).  Below the knee (e.g. 609k DoF, 2.3 MB) the plain gather wins --
-    gate by source size (NumericsConfig.gather_plan="auto").
+    Motivation (scripts/prof_apply_split.py, 965k bench mesh): before the
+    H100 port the XLA row gather was SOURCE-working-set bound, so once the
+    [n_unodes, c] node array outgrew the fast set the windowed form won;
+    below that size the plain gather won -- gate by source size
+    (NumericsConfig.gather_plan="auto").  Not yet measured on the H100.
 
     P2 wrinkle: cells_u references two first-touch-numbered bands (vertices
     [0, n_v), edge nodes [n_v, n_u)), so one window per band per block; the
@@ -382,15 +380,15 @@ class HalvingPlan:
     """Reduce plan with ONE flat gather + contiguous pairwise halvings.
 
     The [rows, K] table form of GatherPlan makes XLA issue a padded 2-D
-    gather and reduce it row-wise; measured on v5e the same work runs ~1.5x
-    faster as a 1-D gather consumed by reshape sums.  Layout: rows are
+    gather and reduce it row-wise; this form issues a 1-D gather consumed
+    by reshape sums instead.  Layout: rows are
     permuted so rows needing the same number of `chunk`-slot groups are
     contiguous; every row's slots are padded to n_chunks[r]*chunk positions
     in `sort_idx`.  Applying is then
 
         g = padded[sort_idx]                  (one flat 1-D-indexed gather)
-        log2(chunk) x: g = g.reshape(-1, 2, C).sum(1)   (contiguous VPU)
-        per class c: reshape(rows_c, c, C).sum(1)        (contiguous VPU)
+        log2(chunk) x: g = g.reshape(-1, 2, C).sum(1)   (contiguous)
+        per class c: reshape(rows_c, c, C).sum(1)        (contiguous)
         restore natural row order                        (one tiny gather)
 
     All sums are pairwise -> exact same roundoff class as the table form.
@@ -507,10 +505,9 @@ class WeightedPlan:
     gathers with explicit adds), but each gathered row is scaled by a
     per-(row, slot) coefficient vector -- i.e. an ELL SpMV whose rows are
     grouped by nnz count so padding stays negligible.  Built for operators
-    whose SOURCE vector is tiny (e.g. the pressure space): the gather rate
-    is source-working-set bound (PERFORMANCE.md), so trading the big
-    element-array reduction for extra gathered rows from a KB-scale source
-    wins.  Rows are permuted by valence class; `row_unperm` restores
+    whose SOURCE vector is tiny (e.g. the pressure space): it trades the
+    big element-array reduction for extra gathered rows from a KB-scale
+    source.  Rows are permuted by valence class; `row_unperm` restores
     natural order."""
 
     cols: tuple  # per bucket [rows_b, K_b] int32 (pad index = n_src)
@@ -535,7 +532,7 @@ def build_weighted_plan(
     consecutive valence classes are merged until a bucket holds at least
     `min_rows` rows (padding only up to the merged class's max valence), so
     the bucket count stays small without the 2-bucket split's ~28% padding
-    waste (PERFORMANCE.md round-3 exact-valence table)."""
+    waste."""
     rows = np.asarray(rows).astype(np.int64).reshape(-1)
     cols = np.asarray(cols).astype(np.int64).reshape(-1)
     vals = np.asarray(vals)

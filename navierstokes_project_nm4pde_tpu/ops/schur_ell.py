@@ -12,7 +12,7 @@ gather reduction.  The inner solve then iterates on a tiny pressure-space
 SpMV (25-30x smaller than the velocity space) instead of two full
 element-space passes per iteration.
 
-TPU layout: rows are permuted into valence classes so both the SpMV and the
+Layout: rows are permuted into valence classes so both the SpMV and the
 per-step value reduction use tight padded widths (uniform-width ELL would
 pad every row to the diagonal's worst case); a cheap inverse-permutation
 gather restores natural ordering.  Only the upper triangle is assembled
@@ -46,7 +46,7 @@ class SchurELL:
     # Pair-product assembly table (upper triangle).  None when the operator
     # was built with device_assembly=False (frozen projection Schur: the
     # values are assembled once host-side and these ~230 MB of tables never
-    # cross the host->device tunnel).
+    # go to the device).
     prod_vals: jax.Array | None  # [T] D[i,k]*D[j,k] summed over components
     prod_k: jax.Array | None  # [T] int32 velocity node k (for the 1/dF gather)
     plan: GatherPlan | None  # reduces the T products into the flat value slots

@@ -1,8 +1,8 @@
 """Sparse approximate inverse (SPAI) preconditioner for the Schur block.
 
-On this TPU stack every on-device op has a fixed dispatch cost, so a
-Jacobi-CG inner solve (~15 ops/iteration x 10-25 iterations) pays far more
-in op dispatch than in arithmetic.  A Frobenius-norm SPAI turns the Schur
+Every device op has a fixed launch cost, so a Jacobi-CG inner solve
+(~15 ops/iteration x 10-25 iterations) can pay more in launches than in
+arithmetic.  A Frobenius-norm SPAI turns the Schur
 solve into ONE ELL SpMV:
 
     M = argmin ||M S - I||_F  restricted to S's own sparsity pattern
@@ -14,7 +14,8 @@ the frozen M stays an effective approximate solve; "spai_cg" additionally
 runs a few CG iterations with M as the preconditioner.
 
 This plays the ILU role of the reference's inner Schur solves
-(ref: include/Preconditioners.hpp:92-98,148) in a form TPUs can execute.
+(ref: include/Preconditioners.hpp:92-98,148) without a sequential
+triangular solve.
 """
 
 from __future__ import annotations

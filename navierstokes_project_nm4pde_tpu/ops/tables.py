@@ -1,10 +1,10 @@
 """Constant reference-element tensors for matrix-free operator application.
 
-This is the TPU replacement for the reference's per-cell `FEValues` loop
+This is the batched replacement for the reference's per-cell `FEValues` loop
 (ref: src/NavierStokes2D.cpp:209-313): every bilinear form on affine simplices
 factors into (tiny constant reference tensor) x (per-element geometry), so
 operator application becomes a handful of shared matmuls over the element
-batch -- exactly what the MXU wants.
+batch.
 
 Tensors (nu = n_loc_u P2 nodes, np = dim+1 P1 nodes, q = quadrature points):
 

@@ -50,9 +50,9 @@ def run_ensemble(solver, nus, n_steps: int, sharding=None):
     if dev_run.f_lam0 is not None:
         dev_run = _dc.replace(dev_run, f_lam0=None)
     if dev_run.op.contraction != "einsum":
-        # The VPU broadcast contraction relies on XLA fusing an
+        # The broadcast contraction relies on XLA fusing an
         # [E, i, j, c] product; under a wide vmapped batch that becomes
-        # [B, E, i, j, c] -- keep the MXU einsum lowering for ensembles.
+        # [B, E, i, j, c] -- keep the einsum lowering for ensembles.
         dev_run = _dc.replace(
             dev_run, op=_dc.replace(dev_run.op, contraction="einsum")
         )
@@ -86,9 +86,8 @@ def run_ensemble(solver, nus, n_steps: int, sharding=None):
     if dev_run.aux_div:
         # The fgmres-aux divergence reuse stores every Krylov apply's
         # element view into a [restart+1, B, E, nloc, d] basis under
-        # vmap -- pure extra HBM traffic at ensemble member sizes
-        # (measured 248.6 vs 308.4 member-steps/s at B=64, 47k
-        # DoF/member).  The element divergence pass is the fast path.
+        # vmap -- extra device-memory traffic at ensemble member sizes;
+        # the element divergence pass is used instead.
         dev_run = _dc.replace(dev_run, aux_div=False)
     if dev_run.op.dbsr is not None or dev_run.op.gbsr is not None:
         # Same reasoning for the supernode BSR D/G forms: the batched
@@ -105,8 +104,7 @@ def run_ensemble(solver, nus, n_steps: int, sharding=None):
     )
 
     # Chunk the scan like NavierStokesSolver.run: one device program per
-    # chunk.  A whole-trajectory scan multiplied by the batch size runs past
-    # the device watchdog (~2 min) and kills the TPU worker.
+    # chunk, with the diagnostics brought back between chunks.
     spc = max(1, int(solver.config.numerics.steps_per_chunk))
 
     @partial(jax.jit, static_argnames=("length",))

@@ -10,7 +10,7 @@ contiguous blocks aligned with the cell blocks, and each operator
 application exchanges only the *halo* rows -- per-device cross-device bytes
 scale with the subdomain boundary, not the global problem size.
 
-TPU-native mapping (no MPI, no ghost bookkeeping in the hot loop):
+Device mapping (no MPI, no ghost bookkeeping in the hot loop):
 
   * nodes are block-partitioned in their spatial (Morton/RCM) order, so a
     device's cell block touches almost only its own node block plus thin
@@ -18,7 +18,7 @@ TPU-native mapping (no MPI, no ghost bookkeeping in the hot loop):
   * the forward halo (gather u on ghost rows) and the reverse halo
     (scatter-add boundary assembly contributions back to their owners) are
     `lax.ppermute` ring shifts inside `shard_map` -- the XLA collective
-    rides ICI with a payload of exactly the halo slab;
+    carries a payload of exactly the halo slab;
   * all slab shapes are padded to the per-shift maximum across devices so
     the program is SPMD with static shapes.
 
@@ -36,6 +36,10 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
+from navierstokes_project_nm4pde_tpu.config import (
+    NumericsConfig,
+    matmul_precision_scope,
+)
 from navierstokes_project_nm4pde_tpu.ops import operators as ops
 
 
@@ -282,7 +286,9 @@ def halo_apply_system(
     Matches ops.apply_system(..., mask_rows=False) on the unpadded rows.
     `u_pad`/`p_pad` come from `shard_vectors`; outputs keep that sharding.
     Geometry/convection arrays must be cell-sharded over the same mesh
-    (shard_operator) so each device sees its own element block.
+    (shard_operator) so each device sees its own element block.  The
+    element einsums run under NumericsConfig's default matmul precision
+    (full f32 products on every backend).
     """
     axis = mesh.axis_names[0]
     n_dev = plan.n_dev
@@ -332,8 +338,12 @@ def halo_apply_system(
         )
         return y_u, y_p
 
+    def scoped_local(*args):
+        with matmul_precision_scope(NumericsConfig.matmul_precision):
+            return local(*args)
+
     fn = jax.shard_map(
-        local,
+        scoped_local,
         mesh=mesh,
         in_specs=(
             spec_cells, spec_cells,  # u_loc, p_loc (node blocks)

@@ -1,9 +1,9 @@
-"""Multi-device SPMD: element-batch domain decomposition over the ICI mesh.
+"""Multi-device SPMD: element-batch domain decomposition over a device mesh.
 
 The reference's only parallel strategy is domain decomposition over MPI ranks
 (partitioned triangulation, owned-cell filtering, compress() reductions;
 ref: src/NavierStokes2D.cpp:16-19, :212-213, :315-320 -- SURVEY.md section 2c).
-The TPU-native mapping:
+The device mapping:
 
   * the *element batch* axis is sharded over a 1-D `jax.sharding.Mesh`
     ("cells"); every per-element array (connectivity, geometry, convection
@@ -12,7 +12,7 @@ The TPU-native mapping:
     reduction crosses devices);
   * assembly uses the scatter-add path: under GSPMD each device accumulates
     its partial global vector and XLA inserts the `psum` -- this *is* the
-    reference's `compress()`/`MPI_Reduce` but as compiler-placed ICI
+    reference's `compress()`/`MPI_Reduce` but as compiler-placed
     collectives;
   * scalar reductions (dot products, norms, drag/lift) are plain `jnp.sum`
     over replicated/partial arrays -- GSPMD turns them into `psum` too.

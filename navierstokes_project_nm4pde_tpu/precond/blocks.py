@@ -2,7 +2,7 @@
 
 Same block algebra as the reference's preconditioner library
 (ref: include/Preconditioners.hpp:7-534), re-derived from the block-LU
-factorisation and rebuilt TPU-native:
+factorisation and rebuilt for batched device execution:
 
 With K = [[F, G], [D, 0]], G = -D^T, the exact factorisation is
 K = [[F, 0], [D, S]] [[I, F^-1 G], [0, I]] with S = D F^-1 D^T.  Each member
@@ -22,7 +22,7 @@ replaces F^-1 by something cheaper in S and/or in the correction step:
 The reference's inner ILU-preconditioned solves to rel. 1e-2
 (ref: include/Preconditioners.hpp:260-261,271-273) become Jacobi-
 preconditioned *fixed-iteration* GMRES/CG: ILU's sequential triangular
-sweeps cannot use the VPU/MXU, while short Jacobi-Krylov iterations are
+sweeps are sequential, while short Jacobi-Krylov iterations are
 pure gather/einsum kernels and keep everything inside one XLA program.
 The preconditioners are nonstationary either way, which is why the outer
 solver is *flexible* GMRES.
@@ -259,8 +259,8 @@ def _solve_F(op, st: PrecondState, nu, dt, rhs_u, cfg: PrecondConfig, iters=None
         #   z = omega D^-1 r + P Fc^-1 P^T r.
         # Zero fine F-applies per call (the multiplicative variant's
         # pre/post-smoothing residuals cost 2 applies/call and lost
-        # end-to-end despite fewer outer iterations -- measured at 609k:
-        # 0.699 vs 0.814 steps/s); the coarse Jacobi-CG iterates on an
+        # end-to-end despite fewer outer iterations at 609k DoF, before the
+        # H100 port); the coarse Jacobi-CG iterates on an
         # [n_v, W] ELL SpMV ~25x smaller than one fine apply.
         from navierstokes_project_nm4pde_tpu.ops.pmg import (
             pmg_coarse_solve,

@@ -1,6 +1,6 @@
 """Pure-JAX Krylov solvers: flexible GMRES, CG, and fixed-iteration variants.
 
-TPU-native replacement for the reference's Trilinos `SolverGMRES`/`SolverCG`
+Pure-JAX replacement for the reference's Trilinos `SolverGMRES`/`SolverCG`
 (ref: src/NavierStokes2D.cpp:538-559, include/Preconditioners.hpp:66,159,180):
 
   * `fgmres`     -- right-preconditioned *flexible* GMRES under
@@ -16,7 +16,7 @@ TPU-native replacement for the reference's Trilinos `SolverGMRES`/`SolverCG`
     reference's inner solves-to-1e-2 (ref: include/Preconditioners.hpp:260).
 
 All solvers act on flat 1-D vectors; callers wrap block states.
-Dot products optionally accumulate in float64 (`precise=True`): on TPUs the
+Dot products optionally accumulate in float64 (`precise=True`): the
 arrays stay f32 (bandwidth) while the reductions keep Krylov recurrences
 accurate enough for 1e-6 relative residuals.
 """
@@ -60,8 +60,7 @@ def _dot2(x, y, precise: bool, axis_name=None):
     """(x.y, y.y) in ONE fused device reduction.
 
     Stacking the two dot products into a [2, n] @ [n] matvec halves the
-    fixed per-op dispatch cost (every device op costs ~0.4 ms on this
-    backend regardless of size); the CG loop needs r.z and r.r at the same
+    fixed per-op launch cost; the CG loop needs r.z and r.r at the same
     point every iteration."""
     if precise:
         xs = jnp.stack([x, y]).astype(jnp.float64) @ y.astype(jnp.float64)
@@ -181,7 +180,7 @@ def fgmres(
             # Batched classical Gram-Schmidt with reorthogonalisation (CGS2):
             # two matmuls against the whole basis instead of a sequential MGS
             # loop -- hundreds of tiny dot/axpy ops collapse into 4 large ones
-            # (TPU ops have a fixed launch cost).  Rows > j of V are exactly
+            # (every device op has a fixed launch cost).  Rows > j of V are exactly
             # zero (fresh basis each cycle), so no masking is needed.
             hcol1 = _matvec_dots(V, w, precise, axis_name)
             w = w - V.T @ hcol1
@@ -307,7 +306,7 @@ def ls_warmstart(D, Y, r0, precise: bool = True):
 
 
 # ----------------------------------------------------------------------
-# Recycled-block GCR (wide-payload Krylov for row-rate-bound applies)
+# Recycled-block GCR (wide-payload Krylov for payload-insensitive applies)
 # ----------------------------------------------------------------------
 def gcr_recycled(
     A_block: Callable,
@@ -323,9 +322,10 @@ def gcr_recycled(
 ):
     """Solve A x = b by least-squares over recycled + fresh directions.
 
-    Exploits a measured property of this backend: the matrix-free apply is
-    ROW-rate bound (gather + reduce), so applying A to a [n, K] block of
-    vectors costs barely more than to one vector.  Round 1 therefore
+    Exploits a property measured before the H100 port (not yet measured
+    on the H100): the matrix-free apply was ROW-rate bound (gather +
+    reduce), so applying A to a [n, K] block of vectors cost barely more
+    than to one vector.  Round 1 therefore
     applies A to the whole block [M b, pool_0, ..] in ONE wide apply and
     takes the least-squares-optimal combination; subsequent narrow rounds
     add one fresh direction M r each (classic GCR, re-solving the small
@@ -533,8 +533,8 @@ def cg_recycled(
     targets).  Harvesting the full x - x0 would fold in the projection
     part, whose image was reconstructed from the PREVIOUS pool's inexact
     images -- that error propagates transitively through harvests and can
-    random-walk above the recurrence drift over long runs (advisor
-    finding, round 4); the projection part lies in the old pool's span
+    random-walk above the recurrence drift over long runs; the projection
+    part lies in the old pool's span
     anyway, so excluding it loses no new subspace information.
 
     `poolD`/`poolW` are [k, n]; zero rows are ignored via the norm guard.

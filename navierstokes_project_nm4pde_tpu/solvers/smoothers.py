@@ -1,8 +1,8 @@
 """Dot-product-free inner smoothers: damped Jacobi-Richardson and Chebyshev.
 
-On this TPU stack every scalar reduction has a fixed ~0.1 ms cost, so inner
-Krylov solves (whose MGS/CG recurrences are dot-heavy) spend as much time in
-reductions as in operator applications.  These smoothers run a fixed number
+Every scalar reduction is a device op with a fixed launch cost, so inner
+Krylov solves (whose MGS/CG recurrences are dot-heavy) can spend as much
+time in reductions as in operator applications.  These smoothers run a fixed number
 of applications with *no* reductions -- they fill the role of the
 reference's inner ILU-preconditioned solves to rel. 1e-2
 (ref: include/Preconditioners.hpp:260-273) at a fraction of the scalar

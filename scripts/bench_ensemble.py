@@ -1,5 +1,5 @@
 """Ensemble throughput refresh: B vmapped 3D cylinder members with the
-round-3 single-run stack applied where it composes with vmap (frozen
+single-run stack applied where it composes with vmap (frozen
 projection Schur shared across members -- S~ is nu-independent -- plain
 Jacobi velocity FGMRES, additive two-level Schur CG, columns reduce,
 stacked gathers, fused rhs/r0, quadratic-u warm start, frozen conv diag).
@@ -13,10 +13,6 @@ import os
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-from navierstokes_project_nm4pde_tpu.utils.platform import honor_platform_env
-
-honor_platform_env()
 
 import numpy as np  # noqa: E402
 

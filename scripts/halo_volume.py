@@ -14,10 +14,6 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from navierstokes_project_nm4pde_tpu.utils.platform import honor_platform_env
-
-honor_platform_env()
-
 import numpy as np
 
 from navierstokes_project_nm4pde_tpu.fem.space import build_taylor_hood

@@ -1,16 +1,16 @@
 """Decompose the macro-element block apply (ops/macroblock.py) into its
 gather / matvec / reduce phases and A/B matvec layouts, using a cached
-mesh so re-runs skip the ~3-7 min host setup.
+mesh so re-runs skip the host setup.
 
-The matvec is a batched [U, V] x [V, C] with C=3: the narrow operand
-sits in the LANE dim, wasting 125/128 lanes and forcing relayouts.  The
-transposed form [C, V] x [V, U] puts the wide axis in lanes (the same
-orientation the one-hot BUILD einsums use).  This script times both plus
+The matvec is a batched [U, V] x [V, C] with C=3: the narrow operand sits
+in the minor dim.  The transposed form [C, V] x [V, U] puts the wide axis
+minor (the same orientation the one-hot BUILD einsums use).  This script times both plus
 the raw Ft stream floor.
 
 Usage: python scripts/prof_macro_apply.py [lc] [nz]  (default 965k)
-Cache: /tmp/macro_apply_cache_{lc}_{nz}.npz (cells_u only; values are
-random -- apply timing does not need the real operator).
+Cache: .jax_cache/macro_apply_cache_{lc}_{nz}.npz in the checkout
+(cells_u only; values are random -- apply timing does not need the real
+operator).
 """
 from __future__ import annotations
 
@@ -21,10 +21,6 @@ import time
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-from navierstokes_project_nm4pde_tpu.utils.platform import honor_platform_env
-
-honor_platform_env()
 
 import jax
 import jax.numpy as jnp
@@ -59,7 +55,11 @@ def timeit(f, m, x0):
 
 def load_or_build(lc: float, nz: int):
     tag = f"{lc:g}_{nz}"
-    path = f"/tmp/macro_apply_cache_{tag}.npz"
+    path = os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        ".jax_cache", f"macro_apply_cache_{tag}.npz",
+    )
+    os.makedirs(os.path.dirname(path), exist_ok=True)
     if os.path.exists(path):
         d = np.load(path)
         return d["cells_u"], int(d["n_unodes"]), int(d["n_vertices"])
@@ -185,7 +185,7 @@ def extra_build_reduce(lc=0.024, nz=14):
     t = timeit(lambda m, fe: build_macro_values(m, fe)[:, 0, 0], mp, Fe)
     print(f"build HIGHEST           : {t:7.2f} ms")
 
-    # stage split: where do the 21 ms go?  stage 1 (placement, nloc
+    # stage split: where does the build time go?  stage 1 (placement, nloc
     # contraction) vs stage 2 (the [U, c*nloc] x [c*nloc, U] batched GEMM
     # over the 1.1 GB materialised intermediate A)
     HI = jax.lax.Precision.HIGHEST
@@ -242,7 +242,7 @@ def extra_build_reduce(lc=0.024, nz=14):
             A = jnp.einsum("bciu,bcij->bcju", P.astype(jnp.float32), fep)
             return jnp.einsum("bcju,bcjv->buv", A, P.astype(jnp.float32))
         # split chains: F_e decomposed into exact bf16 components; each
-        # chain runs at DEFAULT (bf16 MXU, f32 accumulate) with the
+        # chain runs at DEFAULT (bf16 operands, f32 accumulate) with the
         # one-hot operand exact in bf16
         comps = []
         r = fep

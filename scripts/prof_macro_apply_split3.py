@@ -13,10 +13,6 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from navierstokes_project_nm4pde_tpu.utils.platform import honor_platform_env
-
-honor_platform_env()
-
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -1,9 +1,8 @@
 """Sweep the macro-block geometry (U, c_blk): larger blocks cut the
 block-overlap factor beta = B*U_used/n, and with it the row count of BOTH
-row-rate-bound phases of every macro F apply (slot gather + bucketed
-reduce).  The price is a bigger value stream (B*U^2 grows ~U per node) and
-a costlier build; the apply is gather/reduce bound at U=128, so there is
-headroom.
+gather phases of every macro F apply (slot gather + bucketed reduce).  The
+price is a bigger value stream (B*U^2 grows ~U per node) and a costlier
+build.
 
 Prints, per (U, c_blk): block stats, apply phases, split3 build time.
 
@@ -19,10 +18,6 @@ import time
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-from navierstokes_project_nm4pde_tpu.utils.platform import honor_platform_env
-
-honor_platform_env()
 
 import jax
 import jax.numpy as jnp

@@ -2,7 +2,7 @@
 against the plain-Jacobi FGMRES path on the bench workload shape.
 
 Convergence behaviour (iteration counts per step) is hardware-independent,
-so run on CPU (JAX_PLATFORMS=cpu) at small scale first; the TPU win is
+so run on CPU (JAX_PLATFORMS=cpu) at small scale first; the device win is
 then (narrow rounds saved) x (macro apply cost) minus the wide round's
 extra channel cost.
 
@@ -15,10 +15,6 @@ import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-from navierstokes_project_nm4pde_tpu.utils.platform import honor_platform_env
-
-honor_platform_env()
 
 import dataclasses
 

@@ -1,10 +1,9 @@
 """Per-iteration cost of the frozen-Schur CG at bench scale.
 
-VERDICT r4 item 6: one CG iteration = banded SpMV + additive two-level
-apply + dots/updates, ~3 fused kernels x the ~0.4 ms fixed op cost.
-This script measures the true ms/iter of the FULL loop (fixed-iteration
-CG, baseline-subtracted) and its components, to decide whether a fused
-Pallas iteration kernel can reach <= 0.9 ms/iter and what it would save.
+One CG iteration = banded SpMV + additive two-level apply +
+dots/updates.  This script measures the ms/iter of the FULL loop
+(fixed-iteration CG, baseline-subtracted) and its components, to decide
+whether a fused iteration kernel would pay.
 
 Usage: python scripts/prof_schur_iter.py [lc] [nz]   (default 965k mesh)
 """
@@ -15,10 +14,6 @@ import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-from navierstokes_project_nm4pde_tpu.utils.platform import honor_platform_env
-
-honor_platform_env()
 
 import jax
 import jax.numpy as jnp

@@ -1,4 +1,4 @@
-"""Cost of the per-step diagnostics on the live TPU.
+"""Cost of the per-step diagnostics on the accelerator.
 
 Every step computes forces, delta-p, the divergence norm, and kinetic
 energy (StepDiagnostics) -- the last two are full element passes.  This
@@ -15,10 +15,6 @@ import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-from navierstokes_project_nm4pde_tpu.utils.platform import honor_platform_env
-
-honor_platform_env()
 
 import jax
 import jax.numpy as jnp
@@ -76,7 +72,7 @@ def main():
         ("maxiter5", False, 5),
     ):
         s = build(mesh, stub, mi)
-        state, _ = s.run(8)  # compile + settle
+        state, _ = s.run(8)  # compile + past the impulsive start
         t0 = time.perf_counter()
         state, d = s.run(n_steps, state=state)
         jax.block_until_ready(state.u)

@@ -1,10 +1,10 @@
 """A/B the forward element DoF gather: plain u[cells_u] vs a windowed form.
 
-The gather row rate is SOURCE-working-set bound (scripts/prof_gather_rate.py:
-~5.4-6.7 ns/row from the few-MB node array, ~3.3-3.7 ns/row gathered
-block-by-block from a dynamic-sliced <=0.5 MB window).  Unlike the windowed
-REDUCE (measured-and-rejected: segment-max valence padding + window overlap
-re-streaming a tens-of-MB source), the forward gather has NO padding (every
+Before the H100 port the gather row rate was SOURCE-working-set bound
+(scripts/prof_gather_rate.py), so gathering block-by-block from a
+dynamic-sliced <=0.5 MB window beat the few-MB node array; not yet
+measured on the H100.  Unlike the windowed REDUCE (rejected: segment-max
+valence padding + window overlap re-streaming a tens-of-MB source), the forward gather has NO padding (every
 slot is exactly one row) and its source is only a few MB (overlap
 re-streaming is noise), so the windowed rate should survive intact.
 
@@ -12,7 +12,7 @@ P2 wrinkle: cells_u references two first-touch-numbered bands (vertices
 [0, n_v), edges [n_v, n_u)) -- one window per band per block, gathered from
 their concatenation with band-offset local indices.
 
-Usage: python scripts/prof_window_gather.py   (real TPU; NS_LC/NS_NZ to size)
+Usage: python scripts/prof_window_gather.py   (on the GPU; NS_LC/NS_NZ to size)
 """
 
 from __future__ import annotations
@@ -24,10 +24,6 @@ import time
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-from navierstokes_project_nm4pde_tpu.utils.platform import honor_platform_env
-
-honor_platform_env()
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402

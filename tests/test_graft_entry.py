@@ -1,10 +1,10 @@
-"""Driver-facing entry points: the multi-chip dryrun must work in-process.
+"""Entry points of __graft_entry__: the multi-device dryrun must work
+in-process.
 
-Round-1 verdict: `dryrun_multichip` crashed under the ambient single-chip
-TPU platform and (after the platform fix) its 2-axis branch silently ran
-without cell sharding.  These tests pin both fixes: the dryrun executes on
-the 8-virtual-device CPU mesh end to end, and the 2-axis batch x cells
-composition matches the unsharded ensemble run.
+These tests pin two properties: the dryrun executes on the
+8-virtual-device CPU mesh end to end, and the 2-axis batch x cells
+composition matches the unsharded ensemble run (an earlier version of its
+2-axis branch silently ran without cell sharding).
 """
 
 import numpy as np

@@ -27,7 +27,6 @@ from navierstokes_project_nm4pde_tpu.models import (
 from navierstokes_project_nm4pde_tpu.ops import operators as ops
 from navierstokes_project_nm4pde_tpu.ops.macroblock import (
     apply_macro,
-    apply_macro_t,
     build_macro_plan,
     build_macro_values,
 )
@@ -53,12 +52,6 @@ def test_macro_apply_matches_apply_F():
     assert mp.B * mp.c_blk >= mesh.n_cells
     y = np.asarray(apply_macro(mp, build_macro_values(mp, conv.F_e), u))
     np.testing.assert_allclose(y, y_ref, rtol=1e-13, atol=1e-13)
-
-    # VPU matvec on the transposed values (Pallas kernel; interpret mode
-    # off-TPU): same values, same summation structure
-    FtT = build_macro_values(mp, conv.F_e, layout="vu")
-    y_t = np.asarray(apply_macro_t(mp, FtT, u))
-    np.testing.assert_allclose(y_t, y_ref, rtol=1e-13, atol=1e-13)
 
 
 def test_macro_split3_build_matches_highest():
@@ -211,7 +204,7 @@ def test_macro_wide_blocks_match_apply_F():
 
 
 def test_slot_expand_elem_matches_gather():
-    """The one-hot MXU expansion of a slot view must reproduce the
+    """The one-hot expansion of a slot view must reproduce the
     forward element gather BITWISE: f32 rides the exact 3-way bf16 split
     (products one-hot-selected, recombination restores the mantissa),
     f64 goes through a HIGHEST einsum on exact 0/1 operands."""

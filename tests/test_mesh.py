@@ -211,3 +211,24 @@ def test_msh_v41_fixture_parses_and_solves():
     assert np.all(np.isfinite(np.asarray(diags.drag)))
     # the inlet BC actually drives flow (tags were mapped correctly)
     assert float(np.abs(np.asarray(state.u)).max()) > 1e-3
+
+
+def test_rcm_reorder_spans_bounded():
+    """RCM must bound per-node cell spans (the band the banded frozen-Schur
+    SpMV and the windowed gathers rely on)."""
+    from navierstokes_project_nm4pde_tpu.fem.space import build_taylor_hood
+
+    mesh = cylinder_duct_3d(lc=0.12, nz=4)
+    for method, factor in [("morton", None), ("rcm", 0.35)]:
+        m = mesh.reorder_spatial(method)
+        space = build_taylor_hood(m)
+        cells = np.asarray(space.cells_u, dtype=np.int64)
+        E, nloc = cells.shape
+        first = np.full(space.n_unodes, E, np.int64)
+        last = np.full(space.n_unodes, -1, np.int64)
+        ci = np.repeat(np.arange(E), nloc)
+        np.minimum.at(first, cells.reshape(-1), ci)
+        np.maximum.at(last, cells.reshape(-1), ci)
+        span_max = int((last - first + 1).max())
+        if factor is not None:
+            assert span_max < factor * E, (method, span_max, E)

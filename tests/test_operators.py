@@ -520,3 +520,45 @@ def test_gradient_weighted_plan_matches_element(setup):
             np.asarray(ops.apply_gradient(opg, p)), y_elem,
             rtol=1e-12, atol=1e-13,
         )
+
+
+@pytest.mark.parametrize("mode", ["table", "columns"])
+def test_vmapped_velocity_reduce_matches_segment_sum(setup, mode):
+    """Ensemble members reduce their element contributions through the
+    gather-sum plan under vmap (no custom batching rule): B=3 members must
+    equal a per-member segment-sum scatter."""
+    import jax
+
+    from navierstokes_project_nm4pde_tpu.ops.scatter import (
+        apply_gather_plan,
+        build_gather_plan_grouped,
+    )
+
+    space, geom, op = setup
+    cells = np.asarray(space.cells_u)
+    plan = build_gather_plan_grouped(
+        cells.reshape(-1, 1), space.n_unodes,
+        thresholds=tuple(range(2, 97)), mode=mode,
+    )
+    rng = np.random.default_rng(7)
+    flat = jnp.asarray(
+        rng.standard_normal((3, cells.size, space.dim)), jnp.float64
+    )
+    got = jax.jit(
+        jax.vmap(lambda f: apply_gather_plan(plan, f))
+    )(flat)
+    want = jax.vmap(
+        lambda f: jax.ops.segment_sum(
+            f, jnp.asarray(cells.reshape(-1)), num_segments=space.n_unodes
+        )
+    )(flat)
+    assert got.shape == (3, space.n_unodes, space.dim)
+    np.testing.assert_allclose(
+        np.asarray(got), np.asarray(want), rtol=1e-12, atol=1e-12
+    )
+    # the vmapped scatter_u (element view) takes the same route
+    y_e = flat.reshape(3, cells.shape[0], cells.shape[1], space.dim)
+    got_e = jax.vmap(lambda y: ops.scatter_u(op, y))(y_e)
+    np.testing.assert_allclose(
+        np.asarray(got_e), np.asarray(want), rtol=1e-12, atol=1e-12
+    )

@@ -184,3 +184,41 @@ def test_ensemble_vmap_matches_sequential():
     )
     # different Reynolds numbers produce genuinely different flows
     assert not np.allclose(np.asarray(bstate.u)[0], np.asarray(bstate.u)[2])
+
+
+def test_ensemble_banded_fast_stack_matches_sequential():
+    """The benchmarked projection stack (RCM order, frozen banded Schur,
+    additive two-level CG, plain-Jacobi FGMRES) under vmap: every member
+    equals the same member stepped alone by its own solver (which takes
+    the macro / BSR fast forms the ensemble strips)."""
+    mesh = cylinder_duct_3d(lc=0.25, nz=3)
+    cfg = RunConfig(
+        time=TimeConfig(dt=2e-4, t_end=1.0, stepper="projection"),
+        solver=SolverConfig(rtol=1e-10, restart=8, maxiter=200,
+                            tol_mode="b", guess_order=2),
+        precond=PrecondConfig(kind="yosida", f_iters=0, s_iters=3,
+                              s_solver="mg2_cg", freeze_conv_diag=True,
+                              mg2_form="additive"),
+        numerics=NumericsConfig(
+            dtype="float64", precise_dots=False, steps_per_chunk=2,
+            reduce_plan="columns", proj_schur="frozen", schur_spmv="auto",
+        ),
+    )
+    solver = NavierStokesSolver(mesh, Cylinder3DProblem(test_case=2), cfg)
+    assert solver._reorder_method == "rcm"
+    assert solver._dev.proj_schur.band is not None
+    nus = np.array([1e-3, 4e-3, 2e-2])
+    bstate, bdiags = run_ensemble(solver, nus, n_steps=4)
+    for m, nu in enumerate(nus):
+        alone = NavierStokesSolver(
+            mesh, Cylinder3DProblem(test_case=2, nu=float(nu)), cfg
+        )
+        state, diags = alone.run(4)
+        np.testing.assert_allclose(
+            np.asarray(bstate.u)[m], np.asarray(state.u),
+            rtol=1e-6, atol=1e-8,
+        )
+        np.testing.assert_allclose(
+            np.asarray(bstate.p)[m], np.asarray(state.p),
+            rtol=1e-6, atol=1e-6,
+        )

@@ -64,7 +64,7 @@ def test_chebyshev_beats_richardson_on_spd():
     ],
 )
 def test_fast_precond_variants_converge(opts):
-    """Ethier-Steinman single step with the TPU-tuned preconditioner knobs."""
+    """Ethier-Steinman single step with the tuned preconditioner knobs."""
     from navierstokes_project_nm4pde_tpu.config import (
         NumericsConfig,
         PrecondConfig,
